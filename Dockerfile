@@ -2,8 +2,8 @@
 #
 # Stage 1 builds the native ingest extension and C API against FFmpeg dev
 # headers; stage 2 is the slim runtime with only shared libs + the package.
-# For TPU hosts, base this on a JAX-TPU image instead of python:slim and the
-# jax[tpu] wheel is picked up automatically.
+# For GPU hosts, install jax[cuda12] in place of jax[cpu] below: the search
+# kernel is a Pallas kernel through Triton and needs JAX's CUDA plugin.
 
 FROM python:3.12-slim AS build
 RUN apt-get update && apt-get install -y --no-install-recommends \

@@ -1,4 +1,4 @@
-"""needle-tpu: a TPU-native framework for finding openings ("needles") and endings in
+"""needle-tpu: a JAX framework for finding openings ("needles") and endings in
 TV/anime episodes ("haystacks") using audio fingerprints.
 
 Built from scratch in JAX/XLA/Pallas with the same capabilities as the reference
@@ -6,11 +6,11 @@ implementation `aksiksi/needle` (Rust + FFmpeg + chromaprint + rayon):
 
   * :class:`needle_tpu.Analyzer`  — decodes episode audio and converts it into
     :class:`needle_tpu.FrameHashes` (chromaprint-style 32-bit perceptual hashes),
-    with the fingerprint math running as batched JAX/XLA/Pallas compute on TPU.
+    with the fingerprint math running as batched JAX/XLA compute on the GPU.
     (reference: needle/src/audio/analyzer.rs)
   * :class:`needle_tpu.Comparator` — searches for openings/endings across two or
     more episodes via a batched pairwise Hamming-similarity / longest-common-run
-    engine on TPU, replacing the reference's per-pair rayon CPU loop.
+    engine on the GPU, replacing the reference's per-pair rayon CPU loop.
     (reference: needle/src/audio/comparator.rs)
 
 The public surface mirrors the reference:

@@ -1,7 +1,6 @@
 """Shared shape-bucketing for jitted program inputs.
 
-Every distinct input shape costs a compile (expensive on remote-compile
-transports), so dynamic sizes — frame counts, hash-sequence lengths,
+Every distinct input shape costs a compile, so dynamic sizes — frame counts, hash-sequence lengths,
 episode counts — are rounded up to quarter-steps between powers of two:
 a bounded set of compiled programs serves any library, with at most ~14%
 padding waste.

@@ -4,9 +4,10 @@ Mirrors needle/src/audio/analyzer.rs. The decode/resample happens on host via
 the native ingest layer (exact reference packet semantics); the fingerprint
 math runs on the selected backend:
 
-  * "jax"         — batched JAX/XLA/Pallas pipeline on TPU (default when JAX
-                    is usable); episodes are fingerprinted as one batch.
-  * "numpy"       — the validated NumPy implementation (CPU fallback).
+  * "jax"         — batched JAX/XLA pipeline on the default device (the
+                    default, also selected by "auto"); episodes are
+                    fingerprinted as one batch.
+  * "numpy"       — the validated NumPy implementation (reference oracle).
   * "chromaprint" — ctypes to a system libchromaprint (bit-exact with that
                     exact build; optional).
 
@@ -37,7 +38,7 @@ from .util import compute_header_md5sum
 # Which conversion the crate (0.1.x) uses cannot be confirmed offline — its
 # source is unavailable here and no cargo toolchain exists to produce a
 # golden .needle.dat — so BOTH interpretations are implemented, switchable
-# with NEEDLE_TPU_TS_MODE (VERDICT r2 missing #1):
+# with NEEDLE_TPU_TS_MODE:
 #
 #   * "samples" (default): Duration from the sample counters at full f64
 #     precision — delay = 28666/11025 s, item = 1365/11025 s. The C API
@@ -101,15 +102,11 @@ def _fingerprint_backend(name: str):
         from .fingerprint.oracle import fingerprint_oracle
 
         return lambda pcm: fingerprint_oracle(pcm, channels=2)
-    if name == "jax":
+    if name in ("jax", "auto"):
+        # auto is the JAX engine; a failure to set it up raises
         from .fingerprint.jax_impl import fingerprint_jax_stereo
 
         return fingerprint_jax_stereo
-    if name == "auto":
-        try:
-            return _fingerprint_backend("jax")
-        except Exception:
-            return _fingerprint_backend("numpy")
     raise ValueError(f"unknown fingerprint backend: {name}")
 
 
@@ -226,7 +223,7 @@ class Analyzer:
             )
         return opening_pcm, ending_pcm, stream_duration, seek_to
 
-    # -- device ingest (raw PCM -> TPU resample/downmix/fingerprint) -----------
+    # -- device ingest (raw PCM -> device resample/downmix/fingerprint) --------
 
     def _use_device_ingest(self, path) -> bool:
         """Raw-PCM sources on the JAX backend skip host swr entirely: the
@@ -235,15 +232,9 @@ class Analyzer:
         fingerprint_ingest_jax_batch)."""
         from . import ingest
 
-        if self.backend_name not in ("jax", "auto"):
-            return False
-        if not ingest.is_pcm_file(path):
-            return False
-        try:
-            from .fingerprint.jax_impl import fingerprint_ingest_jax_batch  # noqa
-            return True
-        except Exception:
-            return False
+        return self.backend_name in ("jax", "auto") and ingest.is_pcm_file(
+            path
+        )
 
     def _raw_segments(
         self, path: Path
@@ -316,7 +307,7 @@ class Analyzer:
                     # stereo source can end mid-frame, and the device
                     # placement already drops the dangling sample via
                     # n_valid // channels — match it instead of letting
-                    # reshape(-1, 2) raise (ADVICE r3).
+                    # reshape(-1, 2) raise.
                     opening_seg = downmix_stereo_i16(
                         np.asarray(opening_seg[: opening_nv & ~1])
                     )
@@ -444,20 +435,14 @@ class Analyzer:
 
         Decode runs on host threads; with the JAX backend all episodes'
         segments are fingerprinted as ONE batched device dispatch (the
-        episodes axis is the TPU-native replacement for the reference's
-        rayon fan-out, and shards over meshes)."""
+        episodes axis is the device replacement for the reference's rayon
+        fan-out, and shards over meshes)."""
         if len(self.videos) == 0:
             raise AnalyzerMissingPaths()
         if isinstance(hash_duration, (int, float)):
             hash_duration = Duration.from_secs_f32(np.float32(hash_duration))
 
-        use_batched = len(self.videos) > 1 and self.backend_name in ("jax", "auto")
-        if use_batched:
-            try:
-                from .fingerprint.jax_impl import fingerprint_jax_batch  # noqa: F401
-            except Exception:
-                use_batched = False
-        if use_batched:
+        if len(self.videos) > 1 and self.backend_name in ("jax", "auto"):
             return self._run_batched(hash_duration, persist, threading)
 
         if threading and len(self.videos) > 1:
@@ -500,7 +485,7 @@ class Analyzer:
         assembly/persist. Cache semantics identical to run_single.
 
         Raw-PCM sources use the fused device-ingest pipeline (upload
-        source-rate i16; resample/downmix/fingerprint on TPU); compressed
+        source-rate i16; resample/downmix/fingerprint on device); compressed
         media decodes on host then fingerprints on device.
         """
         from .data import FrameHashes as FH
@@ -575,8 +560,7 @@ class Analyzer:
             if threading and len(videos) > 1:
                 # Sized to the host: prepare() is CPU-bound (decode + FIR),
                 # so workers beyond the core count only add context-switch
-                # and cache-thrash overhead on small hosts (this rig has 1
-                # core; 4 fixed workers inflated per-thread span walls 6x).
+                # and cache-thrash overhead on small hosts.
                 # Uploads still overlap: consume() dispatches async
                 # device_puts on the main thread between pool yields.
                 import os as _os

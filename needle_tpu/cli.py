@@ -26,7 +26,7 @@ def _build_parser() -> argparse.ArgumentParser:
         prog="needle",
         description=(
             "needle detects openings/intros and endings/credits across video "
-            "files (TPU-native implementation)."
+            "files (JAX implementation)."
         ),
     )
     def add_global_flags(parser, suppress: bool):

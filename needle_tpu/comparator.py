@@ -1,7 +1,7 @@
 """Comparator: cross-episode opening/ending search.
 
 Mirrors needle/src/audio/comparator.rs. The pairwise hash-sequence search runs
-on a pluggable engine (batched JAX/TPU by default, reference-exact NumPy as
+on a pluggable engine (batched JAX by default, reference-exact NumPy as
 fallback/oracle); candidate voting, skip files, and display logic run on host
 and replicate the reference exactly:
 
@@ -171,13 +171,10 @@ class Comparator:
     def _engine(self):
         if self.engine_name == "numpy":
             return NumpySearchEngine()
-        if self.engine_name == "jax":
+        if self.engine_name in ("jax", "auto"):
+            # auto is the JAX engine; a failure to set it up raises
             return _get_jax_engine()
-        # auto: prefer the batched JAX engine, fall back to NumPy
-        try:
-            return _get_jax_engine()
-        except Exception:
-            return NumpySearchEngine()
+        raise ValueError(f"unknown search engine: {self.engine_name}")
 
     # -- core search ----------------------------------------------------------
 
@@ -287,8 +284,8 @@ class Comparator:
         # Candidate columns (match hash / run-duration nanos / is_opening)
         # collected per GROUP, not per entry. Flat arrays instead of
         # per-candidate tuples+scalar np.float32 math: a dense 1000-episode
-        # library funnels ~2000 candidates into EACH episode's vote and the
-        # scalar version measured ~43 ms/episode (~43 s per scan, r4).
+        # library funnels ~2000 candidates into EACH episode's vote, which
+        # a scalar version pays for in tens of host milliseconds per episode.
         # Array-backed groups (the JAX engine's _LazyEntries) contribute
         # column VIEWS without materializing any RunEntry; the winning
         # candidate alone is materialized in pick(). Candidate order is
@@ -511,7 +508,7 @@ class Comparator:
         analysis (comparator.rs:650-654 -> data.rs:130-139). Here all videos
         go through the Analyzer's batched device pipeline in one pass (same
         per-video semantics: force, default hash duration, not persisted) —
-        the TPU-first equivalent of that loop.
+        the batched equivalent of that loop.
         """
         if analyze:
             from .analyzer import Analyzer

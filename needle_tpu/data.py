@@ -162,7 +162,7 @@ class FrameHashes:
     """Frame hash data for a single video (reference data.rs:74-169).
 
     Hashes and timestamps are held as NumPy arrays (uint32 hash values and
-    int64 timestamp nanoseconds) so the TPU engines can consume them directly;
+    int64 timestamp nanoseconds) so the JAX engines can consume them directly;
     the (de)serializers preserve the reference's exact bincode layout.
     """
 

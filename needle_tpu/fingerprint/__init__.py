@@ -7,9 +7,9 @@ The reference fingerprints audio via the chromaprint C++ library
   * :mod:`needle_tpu.fingerprint.constants` — algorithm constants (frame size,
     chroma mapping, trained classifier filters + quantizer thresholds).
   * :mod:`needle_tpu.fingerprint.numpy_impl` — NumPy reference implementation
-    (validation oracle for the TPU path, and CPU fallback).
+    (validation oracle for the device path).
   * :mod:`needle_tpu.fingerprint.jax_impl` — batched JAX/XLA pipeline
-    (framing -> Hamming window -> DFT-as-matmul on the MXU -> chroma fold ->
+    (framing -> Hamming window -> DFT-as-matmul -> chroma fold ->
     chroma filter -> normalize -> classifier matmul -> gray-code bit packing).
   * :mod:`needle_tpu.fingerprint.oracle` — ctypes binding to a system
     libchromaprint (if present) used in tests to generate golden hashes.

@@ -139,8 +139,8 @@ def classifier_window_matrix() -> tuple[np.ndarray, np.ndarray]:
     two area sums a and b; since both areas are sums of window cells with
     coefficients in {0, +1, -1}, we can compute a and b for all classifiers
     with a single (192 x 32) matmul: columns 2*c and 2*c+1 hold the "a" and
-    "b" cell masks of classifier c. This is the MXU-friendly formulation used
-    by the TPU kernel (replacing chromaprint's CPU integral image).
+    "b" cell masks of classifier c. This is the matmul formulation used by
+    the JAX pipeline (replacing chromaprint's CPU integral image).
     """
     W = np.zeros((MAX_FILTER_WIDTH * NUM_BANDS, 2 * len(CLASSIFIERS_TEST2)), np.float64)
 

@@ -2,8 +2,8 @@
 
 Chromaprint's chroma fold only consumes spectral bins up to ~3520 Hz
 (constants.chroma_bin_ranges), so any representation with >= ~8 kHz sample
-rate carries every bit of information the fingerprint uses. On transports
-where host->device bandwidth is the analyze bottleneck, decimating
+rate carries every bit of information the fingerprint uses. Where
+host->device bandwidth is the analyze bottleneck, decimating
 16 kHz/44.1 kHz/48 kHz sources by an integer factor on host (a cheap
 polyphase FIR) halves-to-quarters the uploaded bytes with no effect on
 which chroma content the device sees; the device's polyphase resampler

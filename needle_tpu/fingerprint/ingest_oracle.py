@@ -1,12 +1,12 @@
 """Host canonical oracle for the fused device-ingest hash basis.
 
-The fused TPU ingest program (jax_impl._ingest_fingerprint_batched) computes
+The fused device ingest program (jax_impl._ingest_fingerprint_batched) computes
 [integer half-band decimate ->] integer downmix -> windowed-sinc polyphase
 resample -> chromaprint TEST2 fingerprint in one jitted program. The integer
 stages are bit-exactly replicated here; the resample and fingerprint stages
 run the device's exact program STRUCTURE in float64 and cast each resampled
 sample to f32 — defining a deterministic, backend-independent canonical
-basis for the fused path's hashes. The device's f32 (MXU-emulated)
+basis for the fused path's hashes. The device's f32
 arithmetic approximates this basis within a measured error bound; hashes
 whose quantization lands within NEEDLE_TPU_EXACT_EPS of a classifier or
 norm-zeroing threshold are flagged on device and recomputed here

@@ -1,6 +1,6 @@
 """NumPy implementation of the chromaprint TEST2 fingerprint pipeline.
 
-This is the validation oracle for the JAX/TPU path and the CPU fallback
+This is the validation oracle for the JAX path and the NumPy
 backend. It reproduces chromaprint v1.5.x (the library used by the reference
 at needle/src/audio/analyzer.rs:176-311) stage by stage:
 

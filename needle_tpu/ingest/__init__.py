@@ -174,11 +174,10 @@ def _load_native_locked() -> ctypes.CDLL:
 def _adopt_native_i16(buf, n: int) -> np.ndarray:
     """Wrap a native-malloc'd i16 output buffer as an ndarray WITHOUT
     copying; ni_free runs when the array (and every view of it) is
-    garbage-collected. The memcpy this replaces measured ~20% of the
-    half-band decimator's wall on the 1-core host (r4: 280 -> 349 Msamp/s
-    wrapper throughput together with the kernel's odd-only deinterleave).
+    garbage-collected, sparing the half-band decimator a memcpy of its
+    whole output.
 
-    OWNERSHIP CONTRACT (ADVICE r4 #3): the returned array OWNS the native
+    OWNERSHIP CONTRACT: the returned array OWNS the native
     buffer through numpy's base-chaining — slices, reshapes, and any view
     keep the wrapper (and therefore the finalizer) alive, so ordinary
     ndarray use is safe (covered by test_ingest lifetime tests, including
@@ -428,7 +427,7 @@ def read_pcm_raw(
     (interleaved i16 samples, rate, channels, duration_secs).
 
     Used by the device-ingest path: the JAX backend uploads source-rate
-    samples and resamples/downmixes on the TPU instead of via host swr.
+    samples and resamples/downmixes on the device instead of via host swr.
     """
     p = str(path).lower()
     if p.endswith(".wav"):

@@ -2,12 +2,12 @@
 
 The reference's parallelism is rayon thread pools over videos (analyze) and
 over episode pairs (search) on one CPU (needle/src/audio/analyzer.rs:437-445,
-comparator.rs:549-564). The TPU-native equivalents are mesh-sharded batch
+comparator.rs:549-564). The device equivalents are mesh-sharded batch
 axes with XLA inserting any collectives:
 
   * **episodes axis** — the fingerprint pipeline is batched over episodes
     (vmap); sharding the batch dimension over a 1-D mesh data-parallelizes
-    analyze across chips. No cross-episode communication exists, so XLA
+    analyze across cards. No cross-episode communication exists, so XLA
     emits zero collectives; results gather to host for persistence.
   * **pairs/tiles axis** — the search engine's (pair, diagonal-tile) work
     items are independent; sharding the item axis over the mesh
@@ -18,7 +18,7 @@ axes with XLA inserting any collectives:
 Use :func:`set_mesh` (or the `needle_mesh` context manager) to activate a
 mesh; the JAX engines consult :func:`get_mesh` and shard their batched
 dispatches automatically. On one device everything degrades to the
-single-chip path.
+single-card path.
 
 **Multi-host model (process-level sharding + per-process local meshes).**
 Under `jax.distributed` the WORK LISTS are sharded across processes —
@@ -69,7 +69,7 @@ def make_mesh(
     If the default platform has fewer devices than requested, the CPU
     platform (with --xla_force_host_platform_device_count=N) can stand in —
     but only with explicit opt-in, via `allow_cpu_fallback=True` or
-    NEEDLE_TPU_CPU_MESH_FALLBACK=1. On a 1-chip TPU host a silent fallback
+    NEEDLE_TPU_CPU_MESH_FALLBACK=1. On a 1-card GPU host a silent fallback
     would quietly shard device-bound work onto host CPU devices; the default
     is to raise instead. When the default platform already IS cpu (tests,
     dryruns) no fallback is involved.

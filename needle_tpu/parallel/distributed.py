@@ -1,20 +1,20 @@
-"""Multi-process / multi-host initialization (SPMD over pods).
+"""Multi-process / multi-host initialization for GPU hosts.
 
 The reference has no distributed backend at all (single process + rayon;
 SURVEY §5.8); scaling beyond one host here uses JAX's native runtime:
-`jax.distributed.initialize` connects the processes of a pod/slice, after
-which `jax.devices()` spans every chip and the mesh helpers in
-needle_tpu.parallel shard the episodes/pairs axes across them with XLA
-emitting any collectives over ICI/DCN.
+`jax.distributed.initialize` connects one process per host, after which
+`jax.devices()` spans every card of every host. Each process owns all of
+its host's cards through `local_mesh()`: the engines shard their batched
+dispatches over those cards (XLA hands any collectives to NCCL over
+NVLink), and the work lists are sharded across processes.
 
-Typical multi-host launch (one process per host, e.g. via the TPU VM
-runtime or GKE):
+Typical multi-host launch (one process per host):
 
     import needle_tpu.parallel.distributed as dist
-    dist.initialize()                      # env-driven on TPU VMs
-    with needle_tpu.parallel.needle_mesh():  # all chips of the slice
-        Analyzer.from_files(my_shard).run(...)   # episodes-axis parallel
-        Comparator.from_files(all_videos).run(...)  # pairs-axis parallel
+    dist.initialize("10.0.0.1:8476", num_processes=2, process_id=rank)
+    needle_tpu.parallel.set_mesh(needle_tpu.parallel.local_mesh())
+    dist.distributed_analyze(Analyzer.from_files(videos), hash_duration)
+    dist.distributed_search(Comparator.from_files(videos), frame_hashes)
 
 File IO remains per-host: each host analyzes the episodes it can see on
 its filesystem (`.needle.dat` next to each video), and search results /
@@ -38,8 +38,8 @@ def initialize(
 ) -> None:
     """Connect this process to the distributed runtime (idempotent).
 
-    With no arguments, JAX auto-discovers the topology on TPU VMs/GKE.
-    Explicit arguments support manual clusters:
+    GPU hosts carry no cluster description JAX could discover, so pass
+    the coordinator address, the process count and this process's id:
     initialize("10.0.0.1:8476", num_processes=4, process_id=0).
     """
     global _initialized

@@ -7,9 +7,10 @@ the same semantics are provided by two engines:
   * :mod:`needle_tpu.search.oracle` — reference-exact NumPy implementation
     (validation oracle + small-input fallback), including emulation of the
     Rust BinaryHeap ordering that determines candidate iteration order.
-  * :mod:`needle_tpu.search.jax_impl` — batched JAX/XLA engine: all pairs at
-    once as a skewed Hamming-similarity tensor with run-length extraction via
-    associative scans, sharded over TPU meshes for large libraries.
+  * :mod:`needle_tpu.search.jax_impl` — batched JAX engine: all pairs at
+    once, each diagonal's runs found by a per-lane walk
+    (:mod:`needle_tpu.search.triton_walk`, on the GPU) or by associative
+    scans over skewed tiles (plain XLA, on the CPU and under device meshes).
 
 Both produce identical `RunEntry` lists; host-side candidate voting lives in
 :mod:`needle_tpu.comparator`.

@@ -92,8 +92,8 @@ class RunEntry:
     """Mirror of ComparatorHeapEntry (comparator.rs:22-35).
 
     slots=True: millions of these are constructed per dense whole-library
-    scan (one per valid candidate); slotted construction measured ~30%
-    cheaper and the engines' entry loops are construction-bound (r4)."""
+    scan (one per valid candidate); slotted construction is cheaper and
+    the engines' entry loops are construction-bound."""
 
     score: int
     src_longest_run: Tuple[Duration, Duration]

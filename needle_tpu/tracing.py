@@ -4,7 +4,7 @@ The reference uses the `tracing` crate: spans around `process_frames`
 (analyzer.rs:164-165), `run` (analyzer.rs:332-333) and
 `find_opening_and_ending` (comparator.rs:257), debug events throughout, and a
 CLI-installed FmtSubscriber at INFO (main.rs:255-259). This module is the
-TPU-framework equivalent:
+equivalent here:
 
   * `span(name, **fields)` — a timed span; enter/exit logged at DEBUG with
     wall duration, and the duration recorded in the process-wide metrics
@@ -32,29 +32,18 @@ logger = logging.getLogger("needle_tpu")
 
 
 class _Metrics:
-    """Process-wide per-stage wall-time accumulators (thread-safe).
-
-    `on_record`, when set to a callable, is invoked (outside the lock,
-    exceptions swallowed) after every record — a progress heartbeat for
-    watchdogs: any completed stage proves the process is advancing, so a
-    monitor can distinguish "slow era" from "hung transport"."""
+    """Process-wide per-stage accumulators (thread-safe): wall seconds of
+    spans, and workload counts recorded under their own names."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._totals: Dict[str, float] = defaultdict(float)
         self._counts: Dict[str, int] = defaultdict(int)
-        self.on_record = None
 
     def record(self, name: str, seconds: float) -> None:
         with self._lock:
             self._totals[name] += seconds
             self._counts[name] += 1
-        hook = self.on_record
-        if hook is not None:
-            try:
-                hook()
-            except Exception:
-                pass
 
     def snapshot(self) -> Dict[str, Tuple[float, int]]:
         with self._lock:

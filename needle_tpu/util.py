@@ -98,7 +98,7 @@ def _is_video_header(buf: bytes) -> bool:
 
 # needle-tpu extension: also accept pre-decoded audio files (.wav/.pcm/.raw)
 # as analyzable inputs. The reference requires a video stream (util.rs:22-53),
-# so discovery defaults to strict reference semantics; large-scale TPU
+# so discovery defaults to strict reference semantics; large-scale
 # pipelines that feed pre-decoded PCM opt in with NEEDLE_TPU_ALLOW_AUDIO=1
 # (read per call, so tests/benches can flip it without reimports).
 _AUDIO_ONLY_SUFFIXES = (".wav", ".pcm", ".raw")

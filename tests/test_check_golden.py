@@ -1,4 +1,4 @@
-"""Self-test for tools/check_golden.py (VERDICT r3 next #5): the verifier
+"""Self-test for tools/check_golden.py: the verifier
 must pass on files our own analyzer persists (under BOTH candidate
 timestamp encodings, detecting each), and fail loudly on corruption."""
 

@@ -151,8 +151,8 @@ def test_fuzz_corrupt_dat_always_needle_error(rng):
 
 def test_ts_mode_golden_bytes(monkeypatch):
     """Both NEEDLE_TPU_TS_MODE interpretations of chromaprint's delay/item
-    conversion produce their exact expected on-disk bytes (VERDICT r2
-    missing #1; reference analyzer.rs:286-318).
+    conversion produce their exact expected on-disk bytes (reference
+    analyzer.rs:286-318).
 
     samples (default): full-precision sample counters (28666/11025 s delay,
     1365/11025 s item). ms: the C API's truncating millisecond accessors

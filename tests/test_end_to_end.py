@@ -168,7 +168,7 @@ def test_search_with_inplace_analyze(tmp_path, capsys):
 def test_search_analyze_uses_batched_pipeline(tmp_path, monkeypatch):
     """Comparator.run(analyze=True) routes ALL videos through the Analyzer's
     batched device pipeline in one pass — never N serial run_single calls
-    (TPU-first rearchitecture of comparator.rs:650-654) — with results
+    (the batched rearchitecture of comparator.rs:650-654) — with results
     identical to the per-video path."""
     from needle_tpu import Comparator
     from needle_tpu.analyzer import Analyzer

@@ -131,7 +131,7 @@ def test_compaction_on_off_and_overflow_agree(rng, monkeypatch):
 
 
 def test_prefilter_skips_do_not_misalign_hash_durations(rng, monkeypatch):
-    """Regression (r4 review): _entries_batch consumed episode-id arrays
+    """Regression: _entries_batch consumed episode-id arrays
     built from the PRE-prefilter work list, so any prefilter-skipped pair
     shifted every later pair onto the WRONG episodes' hash durations —
     latent while all files share one hash duration, wrong end times when

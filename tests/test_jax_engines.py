@@ -1,4 +1,4 @@
-"""The JAX/TPU engines (fingerprint + search) vs the validated NumPy paths.
+"""The JAX engines (fingerprint + search) vs the validated NumPy paths.
 
 Runs on the virtual 8-device CPU mesh (conftest). These are the tests the
 reference lacks entirely: the accelerated path is cross-checked against the
@@ -90,9 +90,9 @@ def test_classifier_values_extraction_matches_oracle():
 
 
 def test_accurate_log32_ulp_accuracy():
-    """_accurate_log32 (the software log that replaced the builtin TPU
-    log's ~1e-4 approximation — the sole source of the former TPU margin
-    asymmetry) stays within ~2 ulp of float64 log across the classifier
+    """_accurate_log32 (the software log the pipeline uses on every
+    backend, so the rescan margin does not depend on a device's builtin
+    log) stays within ~2 ulp of float64 log across the classifier
     operand range, including the cancellation-prone x ~= 1 region."""
     import jax
 

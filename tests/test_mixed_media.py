@@ -240,7 +240,7 @@ def test_host_placement_downmixes_stereo(tmp_path, rng, monkeypatch):
     if not ingest.native_available():
         # without the native integer FIR, host_decimate falls back to
         # scipy (documented ±1 LSB on ~1e-4 samples) and exact equality
-        # doesn't hold (ADVICE r3)
+        # doesn't hold
         pytest.skip("native ingest unavailable")
     rate = 44100
     p = tmp_path / "stereo_host_dm.wav"

@@ -128,7 +128,7 @@ def test_mesh_with_padded_chunks_matches_oracle(rng):
 def test_make_mesh_cpu_fallback_requires_opt_in(monkeypatch, caplog):
     """make_mesh must not silently shard onto CPU devices when the default
     platform has too few devices: explicit opt-in (arg or env) is required,
-    and the fallback logs a warning (VERDICT r1 weak #5)."""
+    and the fallback logs a warning."""
     import logging
 
     import jax
@@ -140,13 +140,13 @@ def test_make_mesh_cpu_fallback_requires_opt_in(monkeypatch, caplog):
     assert parallel.make_mesh(n) is not None
 
     class _FakeDev:
-        platform = "tpu"
+        platform = "gpu"
 
     real_devices = jax.devices
 
     def fake_devices(plat=None):
         if plat is None:
-            return [_FakeDev()]  # 1-chip default platform
+            return [_FakeDev()]  # 1-card default platform
         return real_devices(plat)
 
     monkeypatch.setattr(jax, "devices", fake_devices)

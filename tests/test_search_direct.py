@@ -1,4 +1,4 @@
-"""Direct diagonal flagging (r5): the MXU block correlation pins each
+"""Direct diagonal flagging: the matmul block correlation pins each
 qualifying run's diagonal, superseding the count-kernel walk. These tests
 pin (a) the flagged set covers every planted run's diagonal, (b) the full
 engine in direct mode is byte-identical to the reference-exact numpy

@@ -1,26 +1,70 @@
-"""Pallas search kernel (experimental) vs the host oracle, interpret mode."""
+"""Triton walk kernel (search/triton_walk.py) vs the host oracle, run in
+the Pallas interpreter."""
 
 import numpy as np
+import pytest
 
+from needle_tpu.search import triton_walk as W
+from needle_tpu.search.geometry import (
+    D_TILE,
+    GROUP_DIAGS,
+    full_block_mask,
+    n_groups_for,
+)
 from needle_tpu.search.jax_impl import _diag_candidates
-from needle_tpu.search.pallas_impl import batch_counts_pallas
+from needle_tpu.search.oracle import compute_run_table, find_run_ends
+
+
+def _oracle_ends(src, dst, nv, mv, thr):
+    """(i, j, run) of every maximal run, from the reference DP table."""
+    return find_run_ends(compute_run_table(src[:nv], dst[:mv], thr))
+
+
+def _oracle_counts(ends, lm, n_pad, width):
+    out = np.zeros(width, np.int64)
+    for i, j, L in ends:
+        if L >= lm:
+            out[j - i + n_pad - 1] += 1
+    return out
+
+
+def _required_mask(ends, lm, n_pad):
+    """Per-group bits of every row block holding a row of a qualifying
+    run: the least band mask under which the masked walk stays exact."""
+    bm = np.zeros(n_groups_for(n_pad), np.int64)
+    for i, j, L in ends:
+        if L >= lm:
+            g = (j - i + n_pad - 1) // GROUP_DIAGS
+            for b in range((i - L + 2) // D_TILE, (i + 1) // D_TILE + 1):
+                bm[g] |= 1 << b
+    return bm
+
+
+def _counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+    return np.asarray(
+        W.batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=bm,
+                       interpret=True)
+    )
+
+
+def _planted(rng, chunk, n_pad, at_src, at_dst, run_len):
+    shared = rng.integers(0, 2**32, size=run_len, dtype=np.uint32)
+    src = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
+    dst = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
+    for r in range(chunk):
+        src[r, at_src : at_src + run_len] = shared
+        dst[r, at_dst : at_dst + run_len] = shared
+    return src, dst
 
 
 def test_pallas_counts_match_oracle(rng):
     n_pad, chunk = 512, 4
-    shared = rng.integers(0, 2**32, size=40, dtype=np.uint32)
-    src = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
-    dst = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
+    src, dst = _planted(rng, chunk, n_pad, 30, 50, 40)
     nv = np.array([200, 512, 150, 90], np.int32)
     mv = np.array([220, 512, 100, 250], np.int32)
-    for r in range(chunk):
-        src[r, 30:70] = shared
-        dst[r, 50:90] = shared
     lm = np.array([10, 40, 41, 5], np.int32)
     thr = np.array([10, 10, 10, 0], np.int32)
-    out = np.asarray(
-        batch_counts_pallas(nv, mv, lm, thr, src, dst, n_pad, interpret=True)
-    )
+    out = _counts(nv, mv, lm, thr, src, dst, n_pad)
     for r in range(chunk):
         for d in range(out.shape[1]):
             o = d - (n_pad - 1)
@@ -31,16 +75,10 @@ def test_pallas_counts_match_oracle(rng):
             assert expect == out[r, d], (r, o, expect, out[r, d])
 
 
-import pytest
-
-
-@pytest.mark.parametrize("g_tiles", [8, 16])
-def test_pallas_wide_groups_2560_match_oracle(rng, monkeypatch, g_tiles):
-    """n_pad=2560 exercises multi-group placement and the block-skip
-    bounds at both group widths (16 is the NEEDLE_TPU_SEARCH_GTILES
-    alternative kept for future hardware); both must stay exact,
-    including nv/mv < n_pad."""
-    monkeypatch.setenv("NEEDLE_TPU_SEARCH_GTILES", str(g_tiles))
+@pytest.mark.parametrize("threshold", [8, 16])
+def test_pallas_wide_groups_2560_match_oracle(rng, threshold):
+    """n_pad=2560 spans several row blocks and diagonal blocks with
+    runs far off the main diagonal; nv/mv < n_pad trims the walk."""
     n_pad, chunk = 2560, 2
     shared = rng.integers(0, 2**32, size=60, dtype=np.uint32)
     src = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
@@ -53,38 +91,79 @@ def test_pallas_wide_groups_2560_match_oracle(rng, monkeypatch, g_tiles):
         src[r, 2200:2260] = shared
         dst[r, 30:90] = shared
     lm = np.array([5, 3], np.int32)
-    thr = np.array([8, 8], np.int32)
-    out = np.asarray(
-        batch_counts_pallas(nv, mv, lm, thr, src, dst, n_pad, interpret=True)
-    )
-    assert out.shape == (chunk, 5120)
+    thr = np.array([threshold, threshold], np.int32)
+    out = _counts(nv, mv, lm, thr, src, dst, n_pad)
+    assert out.shape == (chunk, W.n_diag_blocks(n_pad) * W.BLOCK_DIAGS)
     for r in range(chunk):
-        nz = np.nonzero(out[r])[0]
-        for d in nz:  # spot-check every flagged diagonal + a sample of zeros
-            o = int(d) - (n_pad - 1)
-            cands = _diag_candidates(
-                src[r][: nv[r]], dst[r][: mv[r]], o, int(thr[r])
-            )
-            expect = sum(1 for (_, _, L) in cands if L >= lm[r])
-            assert expect == out[r, d], (r, o)
-        for d in rng.integers(0, out.shape[1], size=64):
-            o = int(d) - (n_pad - 1)
-            cands = _diag_candidates(
-                src[r][: nv[r]], dst[r][: mv[r]], o, int(thr[r])
-            )
-            expect = sum(1 for (_, _, L) in cands if L >= lm[r])
-            assert expect == out[r, d], (r, o)
+        ends = _oracle_ends(src[r], dst[r], nv[r], mv[r], threshold)
+        want = _oracle_counts(ends, lm[r], n_pad, out.shape[1])
+        np.testing.assert_array_equal(out[r], want)
+        assert want.sum() >= 2  # both planted runs found
+
+
+@pytest.mark.parametrize("mask", ["ones", "random", "zero"])
+@pytest.mark.parametrize("n_pad", [512, 1024, 2560])
+def test_walk_matches_oracle_under_band_masks(rng, n_pad, mask):
+    """Per-pair thresholds include 0 and 15, episodes shorter than the
+    bucket, runs off the main diagonal. All-ones masks walk everything;
+    random masks keep every row block of a qualifying run plus random
+    others (the only masks the prefilter can emit), so counts stay
+    oracle-exact; all-zero masks walk nothing."""
+    chunk = 3
+    run_len = min(90, n_pad // 4)
+    src, dst = _planted(rng, chunk, n_pad, n_pad // 8, n_pad // 2, run_len)
+    src[1] = dst[1]  # identical episodes: the main diagonal is one run
+    nv = np.array([n_pad, n_pad - 37, n_pad // 2 + 5], np.int32)
+    mv = np.array([n_pad - 100, n_pad, n_pad], np.int32)
+    lm = np.array([20, 4, 30], np.int32)
+    thr = np.array([0, 15, 10], np.int32)
+    width = W.n_diag_blocks(n_pad) * W.BLOCK_DIAGS
+    ends = [
+        _oracle_ends(src[r], dst[r], nv[r], mv[r], int(thr[r]))
+        for r in range(chunk)
+    ]
+    want = np.stack(
+        [_oracle_counts(ends[r], lm[r], n_pad, width) for r in range(chunk)]
+    )
+    assert (want.sum(axis=1) > 0).all()
+    n_groups = n_groups_for(n_pad)
+    if mask == "ones":
+        bm = np.full((chunk, n_groups), full_block_mask(n_pad), np.int32)
+    elif mask == "random":
+        extra = rng.integers(0, 2**31, size=(chunk, n_groups))
+        bm = np.stack(
+            [_required_mask(ends[r], lm[r], n_pad) for r in range(chunk)]
+        ) | (extra & int(full_block_mask(n_pad)))
+        bm = bm.astype(np.int32)
+    else:
+        bm = np.zeros((chunk, n_groups), np.int32)
+        want = np.zeros_like(want)
+    got = _counts(nv, mv, lm, thr, src, dst, n_pad, bm=bm)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_walk_output_geometry():
+    """Diagonal blocks cover all 2*n_pad - 1 diagonals for buckets that
+    are not multiples of the block width; band-mask groups split evenly
+    into diagonal blocks."""
+    assert GROUP_DIAGS % W.BLOCK_DIAGS == 0
+    for n_pad in (256, 320, 640, 2560, 5120):
+        nb = W.n_diag_blocks(n_pad)
+        assert (nb - 1) * W.BLOCK_DIAGS < 2 * n_pad - 1 <= nb * W.BLOCK_DIAGS
+        # the last block's band-mask group exists
+        assert ((nb - 1) * W.BLOCK_DIAGS) // GROUP_DIAGS < n_groups_for(n_pad)
 
 
 def test_engine_with_pallas_kernel_matches_numpy(rng, monkeypatch):
-    """Full search engine with the pallas kernel forced (interpret on CPU)
-    must match the reference-exact numpy engine."""
+    """Full search engine with the Triton walk forced (interpreted on
+    CPU) must match the reference-exact numpy engine."""
     from needle_tpu import Comparator
     from needle_tpu.data import FrameHashes
     from needle_tpu.duration import Duration
     from needle_tpu.search import jax_impl as S
 
-    monkeypatch.setattr(S, "_KERNEL", "pallas")
+    monkeypatch.setattr(S, "_KERNEL", "triton")
+    monkeypatch.setattr(W, "INTERPRET", True)
 
     shared = rng.integers(0, 2**32, size=70, dtype=np.uint32)
     fhs = []

@@ -1,4 +1,4 @@
-"""The MXU pair prefilter must NEVER change results — only skip pairs
+"""The matmul pair prefilter must NEVER change results — only skip pairs
 that provably contain no qualifying run (see search/prefilter.py for the
 bound) — and must actually skip unrelated pairs in mixed libraries."""
 
@@ -237,7 +237,7 @@ def test_adaptive_probe_passes_dense_library_through(rng, monkeypatch):
     assert w == 8 and n_skip > len(work) * 0.9
 
 
-# -- band-level masks (VERDICT r3 next #3) ---------------------------------
+# -- band-level masks --------------------------------------------------------
 
 
 def _mk_pair(rng, n_pad, run_at, run_len):
@@ -251,7 +251,7 @@ def _mk_pair(rng, n_pad, run_at, run_len):
     return src, dst
 
 
-def _band_masks_for(src, dst, nv, mv, lm, thr, n_pad, g_tiles):
+def _band_masks_for(src, dst, nv, mv, lm, thr, n_pad):
     table = np.stack([src, dst])
     vtab = np.zeros((2, n_pad), bool)
     vtab[0, 1:nv] = True
@@ -259,7 +259,7 @@ def _band_masks_for(src, dst, nv, mv, lm, thr, n_pad, g_tiles):
     work = [(0, 0, 1)]
     kept, masks, n_skipped, w = pf.prefilter_band_masks(
         jnp_asarray(table), jnp_asarray(vtab), work, {0: 0, 1: 1},
-        lambda p: lm, thr, n_pad, g_tiles,
+        lambda p: lm, thr, n_pad,
     )
     return table, vtab, kept, masks, n_skipped, w
 
@@ -274,21 +274,18 @@ def jnp_asarray(x):
 def test_band_masked_counts_equal_unmasked(rng, monkeypatch, run_at):
     """The kernel with band masks must produce EXACTLY the counts of the
     full walk — the masks only clear provably run-free row blocks."""
-    from needle_tpu.search.pallas_impl import (
-        batch_counts_pallas,
-        full_block_mask,
-        n_groups_for,
-    )
+    from needle_tpu.search.geometry import full_block_mask, n_groups_for
+    from needle_tpu.search.triton_walk import batch_counts
 
     monkeypatch.setenv("NEEDLE_TPU_SEARCH_PREFILTER", "on")
     n_pad, lm, thr = 2560, 40, 8
     src, dst, = _mk_pair(rng, n_pad, run_at, 60)
     nv = mv = n_pad
     table, vtab, kept, masks, n_skipped, w = _band_masks_for(
-        src, dst, nv, mv, lm, thr, n_pad, 8
+        src, dst, nv, mv, lm, thr, n_pad
     )
     assert kept == [(0, 0, 1)] and n_skipped == 0
-    n_groups = n_groups_for(n_pad, 8)
+    n_groups = n_groups_for(n_pad)
     assert masks.shape == (1, n_groups)
     # the mask must actually prune: strictly fewer bits than the full walk
     full = int(full_block_mask(n_pad))
@@ -301,10 +298,8 @@ def test_band_masked_counts_equal_unmasked(rng, monkeypatch, run_at):
         np.array([lm], np.int32), np.array([thr], np.int32),
         src[None], dst[None], n_pad,
     )
-    got = np.asarray(
-        batch_counts_pallas(*args, bm_b=masks, interpret=True)
-    )
-    want = np.asarray(batch_counts_pallas(*args, interpret=True))
+    got = np.asarray(batch_counts(*args, bm=masks, interpret=True))
+    want = np.asarray(batch_counts(*args, interpret=True))
     np.testing.assert_array_equal(got, want)
     assert want.sum() >= 1  # the planted run is found
 
@@ -317,7 +312,7 @@ def test_band_mask_zero_pair_is_dropped(rng, monkeypatch):
     src = rng.integers(0, 2**32, size=n_pad, dtype=np.uint32)
     dst = rng.integers(0, 2**32, size=n_pad, dtype=np.uint32)
     table, vtab, kept, masks, n_skipped, w = _band_masks_for(
-        src, dst, n_pad, n_pad, lm, thr, n_pad, 8
+        src, dst, n_pad, n_pad, lm, thr, n_pad
     )
     assert kept == [] and n_skipped == 1 and len(masks) == 0
 
@@ -347,7 +342,7 @@ def test_dense_band_masks_equal_per_pair(rng, monkeypatch):
     def masks_with(mode):
         monkeypatch.setenv("NEEDLE_TPU_PREFILTER_DENSE", mode)
         return pf.prefilter_band_masks(
-            table, vtab, work, slot, lambda p: lm, thr, n_pad, 8
+            table, vtab, work, slot, lambda p: lm, thr, n_pad
         )
 
     kept_pp, masks_pp, skip_pp, w_pp = masks_with("off")
@@ -377,7 +372,7 @@ def test_dense_gate_sparse_work_uses_per_pair(rng, monkeypatch):
     slot = {e: e for e in range(n_eps)}
     sparse_work = [(0, 0, 63)]  # one far-apart pair
     pf.prefilter_band_masks(
-        table, vtab, sparse_work, slot, lambda p: 81, 10, n_pad, 8
+        table, vtab, sparse_work, slot, lambda p: 81, 10, n_pad
     )
     assert not calls, "tile path ran on a sparse work list"
     # dense all-pairs work over the same episodes takes the tile path
@@ -385,7 +380,7 @@ def test_dense_gate_sparse_work_uses_per_pair(rng, monkeypatch):
         (a, b) for a in range(n_eps) for b in range(a + 1, n_eps)
     )]
     pf.prefilter_band_masks(
-        table, vtab, dense_work, slot, lambda p: 81, 10, n_pad, 8
+        table, vtab, dense_work, slot, lambda p: 81, 10, n_pad
     )
     assert calls, "tile path did not run on a dense work list"
 
@@ -393,8 +388,8 @@ def test_dense_gate_sparse_work_uses_per_pair(rng, monkeypatch):
 def test_band_masks_long_bucket_returns_none(rng, monkeypatch):
     """Buckets with n_blocks > 31 can't be covered by an i32 bitmask:
     prefilter_band_masks must bail out (returning the untouched work
-    list) BEFORE any device work (ADVICE r4 #2)."""
-    from needle_tpu.search.pallas_impl import D_TILE
+    list) BEFORE any device work."""
+    from needle_tpu.search.geometry import D_TILE
 
     monkeypatch.setenv("NEEDLE_TPU_SEARCH_PREFILTER", "on")
     n_pad = 32 * D_TILE  # n_blocks = 33 > 31
@@ -403,22 +398,22 @@ def test_band_masks_long_bucket_returns_none(rng, monkeypatch):
     vtab[:, 0] = False
     work = [(0, 0, 1)]
     kept, masks, n_skipped, w = pf.prefilter_band_masks(
-        table, vtab, work, {0: 0, 1: 1}, lambda p: 81, 10, n_pad, 8
+        table, vtab, work, {0: 0, 1: 1}, lambda p: 81, 10, n_pad
     )
     assert kept == work and masks is None and n_skipped == 0 and w is None
 
 
 def test_pallas_path_falls_back_to_pair_prefilter(rng, monkeypatch):
     """When band masks are inapplicable (simulating the n_blocks > 31
-    long-bucket case), the pallas path must still run the pair-level
-    skip (ADVICE r4 #2): cross-show pairs get skipped and results stay
-    identical to the numpy engine."""
-    from needle_tpu import Comparator
-    from needle_tpu.duration import Duration
+    long-bucket case), the Triton path must still run the pair-level
+    skip: cross-show pairs get skipped and results stay identical to the
+    numpy engine."""
     from needle_tpu.search import jax_impl as S
+    from needle_tpu.search import triton_walk
     from needle_tpu.tracing import metrics
 
-    monkeypatch.setattr(S, "_KERNEL", "pallas")
+    monkeypatch.setattr(S, "_KERNEL", "triton")
+    monkeypatch.setattr(triton_walk, "INTERPRET", True)
     monkeypatch.setenv("NEEDLE_TPU_SEARCH_PREFILTER", "on")
     # simulate the inapplicable-band condition regardless of n_pad
     monkeypatch.setattr(
@@ -451,15 +446,17 @@ def test_pallas_path_falls_back_to_pair_prefilter(rng, monkeypatch):
 
 @pytest.mark.parametrize("dense_mode", ["off", "on"])
 def test_engine_band_prefilter_matches_numpy(rng, monkeypatch, dense_mode):
-    """Full engine with pallas kernel + band prefilter FORCED on must match
-    the reference-exact numpy engine on a mixed library — with the band
-    masks computed by either the per-pair or the episode-tile path."""
+    """Full engine with the Triton walk + band prefilter FORCED on must
+    match the reference-exact numpy engine on a mixed library — with the
+    band masks computed by either the per-pair or the episode-tile path."""
     from needle_tpu import Comparator
     from needle_tpu.data import FrameHashes
     from needle_tpu.duration import Duration
     from needle_tpu.search import jax_impl as S
+    from needle_tpu.search import triton_walk
 
-    monkeypatch.setattr(S, "_KERNEL", "pallas")
+    monkeypatch.setattr(S, "_KERNEL", "triton")
+    monkeypatch.setattr(triton_walk, "INTERPRET", True)
     monkeypatch.setenv("NEEDLE_TPU_SEARCH_PREFILTER", "on")
     monkeypatch.setenv("NEEDLE_TPU_PREFILTER_DENSE", dense_mode)
 

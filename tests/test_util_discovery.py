@@ -1,8 +1,8 @@
 """Discovery semantics: the reference accepts only files with a video
 stream (util.rs:22-53). Audio-only inputs (.wav/.pcm/.raw) are a
-needle-tpu extension gated behind NEEDLE_TPU_ALLOW_AUDIO (default OFF —
-VERDICT r3 next #4: the extension must not silently diverge from
-reference discovery for a drop-in replacement)."""
+needle-tpu extension gated behind NEEDLE_TPU_ALLOW_AUDIO (default OFF:
+the extension must not silently diverge from reference discovery for a
+drop-in replacement)."""
 
 import numpy as np
 

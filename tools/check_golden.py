@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """Verify a reference-produced `.needle.dat` against this implementation.
 
-The one-command verifier VERDICT r3 asked for (next #5): the Rust
-reference binary can't run in this environment (no cargo), so the byte
-format (data.rs:15-80) and the timestamp encoding (analyzer.rs:286-318)
-were pinned from source reading plus golden tests of BOTH candidate
-encodings. The moment a file produced by the actual reference binary is
+A one-command verifier: without the Rust reference binary (it needs
+cargo) the byte format (data.rs:15-80) and the timestamp encoding
+(analyzer.rs:286-318) were pinned from source reading plus golden tests
+of BOTH candidate encodings. The moment a file produced by the actual reference binary is
 available, run:
 
     python3 tools/check_golden.py GOLDEN.needle.dat [SOURCE_VIDEO]

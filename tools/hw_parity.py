@@ -1,33 +1,29 @@
 #!/usr/bin/env python3
-"""On-hardware exactness harness for the search kernels and the
+"""On-device exactness harness for the search kernels and the
 fingerprint borderline margin.
 
-Round-2 verdict (missing #3): every search-kernel exactness test runs
-`interpret=True` on CPU; the only hardware-side correctness signal was the
-bench's 8-second accuracy tolerance. This harness produces the recorded
-artifact: it runs the FULL JaxSearchEngine with each kernel formulation —
-pallas (production default), tiles, mxu — on the DEFAULT JAX backend (the
-real TPU in production) over randomized + adversarial hash libraries, and
-compares every `OpeningAndEndingInfo`'s complete RunEntry lists (scores,
-run intervals, simhashes, flags, heap backing order) against the
-reference-exact NumPy oracle. Libraries deliberately cross the Pallas
-D_TILE=512 boundary and stress the degenerate cases from
-tests/test_engine_property.py (identical episodes, constant hashes with
-multiple runs per diagonal, tiny sequences, near-threshold bit flips).
+Interpret-mode kernel tests run on the CPU; this harness runs the FULL
+JaxSearchEngine with each kernel formulation — triton (the GPU default),
+tiles, mxu — on the DEFAULT JAX backend over randomized + adversarial
+hash libraries, and compares every `OpeningAndEndingInfo`'s complete
+RunEntry lists (scores, run intervals, simhashes, flags, heap backing
+order) against the reference-exact NumPy oracle. Libraries deliberately
+cross the D_TILE=512 row-block boundary and stress the degenerate cases
+from tests/test_engine_property.py (identical episodes, constant hashes
+with multiple runs per diagonal, tiny sequences, near-threshold bit
+flips).
 
-It also validates the NEEDLE_TPU_EXACT_EPS borderline-rescan margin ON
-HARDWARE (ADVICE r2 #3): max |values_device - values_oracle| and
+It also validates the NEEDLE_TPU_EXACT_EPS borderline-rescan margin on
+the device: max |values_device - values_oracle| and
 |norm_device - norm_oracle| over synthetic audio, asserting the measured
-error sits below half of the flagging margin (1e-5 on every backend since
-_accurate_log32 replaced the builtin TPU log, whose ~1e-4 approximation
-error was the whole TPU-vs-CPU asymmetry; see
-fingerprint/jax_impl._exact_eps) — plus an end-to-end hash bit-exactness
-check on music and white noise.
+error sits below half of the flagging margin (fingerprint/jax_impl.
+_exact_eps) — plus an end-to-end hash bit-exactness check on music and
+white noise.
 
-Prints ONE JSON line. Record the result in STATUS.md.
+Prints ONE JSON line.
 
 Usage:
-    python3 tools/hw_parity.py            # default backend (TPU if present)
+    python3 tools/hw_parity.py            # default backend (the GPU)
     JAX_PLATFORMS=cpu python3 tools/hw_parity.py --trials 2   # smoke
 """
 
@@ -48,7 +44,9 @@ from needle_tpu.comparator import Comparator, NumpySearchEngine
 from needle_tpu.data import FrameHashes
 from needle_tpu.duration import Duration
 
-KERNELS = ("pallas", "tiles", "mxu")
+KERNELS = ("triton", "tiles", "mxu")
+# the Triton walk compiles for the GPU only; the CPU smoke run skips it
+CPU_KERNELS = ("tiles", "mxu")
 
 
 def _fh(h, ending=None, hash_ms=300):
@@ -198,7 +196,7 @@ def validate_exact_eps(rng, seconds: float = 120.0):
 
 
 def hash_bit_exactness(rng, seconds: float = 60.0):
-    """End-to-end on-hardware check of the flag-and-rescan claim: device
+    """End-to-end on-device check of the flag-and-rescan claim: device
     hashes (with the backend's default EXACT_EPS margin) must equal the
     host oracle's bit for bit — on music-like audio (low flag rate) AND
     white noise (values concentrate near thresholds; worst-case rescan)."""
@@ -373,8 +371,8 @@ def make_prefilter_libraries(rng):
 
 def prefilter_parity(rng):
     """Forced-prefilter leg on the default backend. The prefilter's skip
-    bound is computed as bf16 +/-1 MXU matmuls claimed integer-exact
-    (prefilter.py) — a hardware property interpret-mode tests can't
+    bound is computed as bf16 +/-1 matmuls claimed integer-exact
+    (prefilter.py) — a device property interpret-mode tests can't
     back. Run the full JAX engine with NEEDLE_TPU_SEARCH_PREFILTER=on
     and compare every info against the oracle; report pairs skipped."""
     import os
@@ -419,11 +417,11 @@ def prefilter_parity(rng):
 
 
 def direct_parity(rng):
-    """Forced direct-diagonal-flagging leg (r5) on the default backend:
-    the flagged-diagonal superset claim (every qualifying run's aligned
+    """Forced direct-diagonal-flagging leg on the default backend: the
+    flagged-diagonal superset claim (every qualifying run's aligned
     block pins its diagonal; prefilter._tile_diag_flags) rests on the
-    same bf16 +/-1 MXU integer-exactness as the prefilter bound, so it
-    needs the same on-hardware backing. Runs the full JAX engine with
+    same bf16 +/-1 integer-exactness as the prefilter bound, so it
+    needs the same on-device backing. Runs the full JAX engine with
     NEEDLE_TPU_SEARCH_DIRECT=on over the prefilter adversary libraries
     (mixed, unrelated-only, weakest-qualifying zero-slack run) and
     compares every info against the oracle; reports flagged item count."""
@@ -489,14 +487,14 @@ def main():
     rng = np.random.default_rng(args.seed)
     libs = make_libraries(rng, args.trials)
 
-    # warm the transport (first device->host transfer can stall minutes)
-    np.asarray(jax.device_put(np.ones(64, np.float32)) * 2.0)
+    np.asarray(jax.device_put(np.ones(64, np.float32)) * 2.0)  # warm-up
 
     oracle = {}
     mismatches = []
     pairs_checked = 0
     kernel_times = {}
-    kernels = () if args.eps_only else KERNELS
+    all_kernels = KERNELS if backend == "gpu" else CPU_KERNELS
+    kernels = () if args.eps_only else all_kernels
     for name, fhs, thr, mo, endings in (() if args.eps_only else libs):
         oracle[name] = run_engine(fhs, thr, mo, endings, "numpy")
 
@@ -515,7 +513,7 @@ def main():
         kernel_times[kernel] = round(time.time() - t0, 2)
 
     out = {
-        "metric": "search kernel hardware parity (RunEntry-exact vs NumPy oracle)",
+        "metric": "search kernel device parity (RunEntry-exact vs NumPy oracle)",
         "backend": backend,
         "exact": not mismatches,
         "kernels": list(kernels),

@@ -41,7 +41,7 @@ make_synthetic_season(sys.argv[1], num_episodes=3, episode_secs=100,
 EOF
 
 # NEEDLE_TPU_ALLOW_AUDIO: the synthetic season is WAV and discovery now
-# defaults to the reference's video-only semantics (r4, VERDICT r3 #4).
+# defaults to the reference's video-only semantics.
 LD_LIBRARY_PATH="$PWD/capi/asan" \
 LD_PRELOAD="$LIBASAN $LIBUBSAN" \
 ASAN_OPTIONS="detect_leaks=0:abort_on_error=1:strict_string_checks=1" \

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Precompile the standard program shapes into the persistent JAX cache.
 
-On transports with slow remote compiles, the first run over a new library
-size pays tens of seconds per new program shape. This warms the common
-buckets for both engines (deploy-time AOT warmup; also keeps CI/driver
-runs hot). Usage: python tools/warm_cache.py [--quick]
+The first run over a new library size pays a compile per new program
+shape. This warms the common buckets for both engines (deploy-time
+warmup). Usage: python tools/warm_cache.py [--quick]
 """
 
 import sys
@@ -92,15 +91,25 @@ def main() -> None:
             np.asarray(out)
             log(f"search/tiles n_pad={n_pad} e_pad={e_pad} chunk={chunk}: "
                 f"{time.time() - t0:.1f}s")
-            if n_pad % 512 == 0 and jax.default_backend() != "cpu":
+            if S._kernel_choice() == "triton":
+                from needle_tpu.search.geometry import (
+                    full_block_mask,
+                    n_groups_for,
+                )
+
                 t0 = time.time()
-                out = S._batch_pallas_bitmask(
+                walk_chunk = 1024  # _search_side's Triton chunk
+                wa = np.zeros(walk_chunk, np.int32)
+                wlm = np.full(walk_chunk, 2**31 - 1, np.int32)
+                bm = np.full((walk_chunk, n_groups_for(n_pad)),
+                             full_block_mask(n_pad), np.int32)
+                out = S._batch_walk_bitmask(
                     jax.device_put(table), jax.device_put(vt),
-                    jax.numpy.asarray(ia), jax.numpy.asarray(ia),
-                    jax.numpy.asarray(lm), 10, n_pad,
+                    jax.numpy.asarray(wa), jax.numpy.asarray(wa),
+                    jax.numpy.asarray(wlm), jax.numpy.asarray(bm), 10, n_pad,
                 )
                 np.asarray(out)
-                log(f"search/pallas n_pad={n_pad} e_pad={e_pad}: "
+                log(f"search/triton n_pad={n_pad} e_pad={e_pad}: "
                     f"{time.time() - t0:.1f}s")
     log("done")
 
